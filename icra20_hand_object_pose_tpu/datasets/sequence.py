@@ -13,7 +13,7 @@ poses, read by the main.cpp driver with OpenCV). Directory layout:
       hand_base/000000.txt # optional 4x4 hand base->camera
       hand_q/000000.txt    # optional joint angles (one row)
 
-Decoding prefers the native C++ loader (icra20_..._tpu.native: libpng-free
+Decoding prefers the native C++ loader (the `native` subpackage: libpng-free
 zlib decoder + prefetch thread pool) and falls back to the pure-Python
 codec in utils/pngio.py.
 """
@@ -125,7 +125,7 @@ class RecordedSequence:
     def __iter__(self) -> Iterator[RecordedFrame]:
         if self._native is not None:
             # prefetch pipeline: the C++ pool decodes frames ahead of the
-            # tracker (SURVEY.md §2 L1 -> TPU plan "host loader")
+            # tracker (SURVEY.md §2 L1 "host loader")
             yield from self._native.prefetch_frames(
                 self._depth_files, self._load_side, self.depth_scale
             )

@@ -1,6 +1,6 @@
 """Adaptive-hand kinematic model, segmentation, and occlusion masks.
 
-TPU-native rebuild of the reference's Hand/HandT42 classes (SURVEY.md §3
+Rebuild of the reference's Hand/HandT42 classes (SURVEY.md §3
 "Hand kinematic model" / "Hand segmentation": load finger meshes +
 kinematic tree, forward kinematics under actuation uncertainty, classify
 scene points as hand vs object, render hand for occlusion masking).
@@ -11,7 +11,7 @@ Redesign for XLA:
   - actuation uncertainty (underactuated gripper, no joint encoders) is
     a vmapped batch of K sampled finger configurations — the reference
     samples hand configurations serially when building occlusion masks;
-  - segmentation is one MXU distance matrix scene x hand-cloud, min over
+  - segmentation is one fused distance + min pass scene x hand-cloud, over
     the K config axis — no KD-tree;
   - the occlusion mask is a point-splat hand depth buffer shared with
     the object renderer (ops/render.py).
@@ -288,7 +288,7 @@ class HandModel:
         is hand if its distance to ANY sampled hand cloud is below
         segment_dist — conservative removal, mirroring the reference's
         distance-to-hand-mesh test (SURVEY.md §3 "Hand segmentation").
-        One MXU distance matrix per config, min over K.
+        One fused distance + min pass over all K configs.
         """
         flat = hand_clouds.reshape(-1, 3)
         d2 = knn.pairwise_sqdist(scene_pts, flat)

@@ -2,7 +2,7 @@
 
 Rebuild of the reference's per-object precompute (SURVEY.md §4.1:
 PoseEstimator constructor loads the object mesh as a PCL cloud, builds a
-KD-tree over the model, and keeps the mesh for rendering). TPU-first:
+KD-tree over the model, and keeps the mesh for rendering). Here
 the model becomes three padded static tensors — an ICP cloud with
 normals, a denser render-sample cloud for point-splat rasterization,
 and the raw mesh kept host-side for exact triangle rendering of

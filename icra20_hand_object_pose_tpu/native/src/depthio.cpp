@@ -1,14 +1,14 @@
 // Native depth-frame IO: 16-bit grayscale PNG codec + prefetching
 // frame loader.
 //
-// TPU-native rebuild of the reference's OpenCV-based dataset reader
+// Rebuild of the reference's OpenCV-based dataset reader
 // (SURVEY.md §3 "Dataset I/O": cv::imread of 16-bit depth PNGs inside
 // the C++ driver loop). The rebuild keeps the decode path native for the
 // same reason the reference did — Python-level PNG unfiltering is
 // orders of magnitude too slow to feed a tracker at sensor rate — but
 // adds what the single-threaded reference lacked: a thread-pool
 // prefetcher that decodes frames ahead of the device step so host IO
-// overlaps TPU compute.
+// overlaps device compute.
 //
 // Zero third-party image dependencies: PNG container parsing and
 // scanline unfiltering are implemented here; DEFLATE comes from zlib.

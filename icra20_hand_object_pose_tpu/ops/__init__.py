@@ -1,1 +1,1 @@
-from . import camera, icp, knn, knn_pallas, preprocess, pso, render, score  # noqa: F401
+from . import camera, icp, knn, preprocess, pso, render, score  # noqa: F401

@@ -2,7 +2,7 @@
 
 Rebuild of the reference's depth->cloud utilities (SURVEY.md §3 "Depth
 backprojection": organized point cloud from depth + K). Pure jnp; shapes
-are [H,W] image grids so XLA lays them out TPU-friendly; fuses into the
+are [H,W] image grids; fuses into the
 preprocessing jit (SURVEY.md §2 L2).
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ def project(points: jax.Array, fx, fy, cx, cy) -> tuple[jax.Array, jax.Array]:
 def grid_normals(cloud: jax.Array, valid: jax.Array) -> jax.Array:
     """Surface normals on an organized cloud via image-grid finite differences.
 
-    TPU-native replacement for PCL NormalEstimation (SURVEY.md §3 "Normal
+    Replacement for PCL NormalEstimation (SURVEY.md §3 "Normal
     estimation"): cross product of central differences along the image grid,
     oriented toward the camera (-z half-space). Cheap, fully fused, no
     KD-tree. cloud [H,W,3], valid [H,W] bool -> normals [H,W,3] (zero where

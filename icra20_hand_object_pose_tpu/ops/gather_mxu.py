@@ -1,22 +1,17 @@
-"""MXU image gathers: separable one-hot matmuls replacing XLA gather.
+"""Image gathers as separable one-hot matmuls (ScoreConfig.gather_mode="mxu").
 
 Projective render-and-compare (ops/score.compare_points) classifies every
 posed model sample by the observed/hand depth at its projected pixel — a
-random image gather. XLA's TPU gather is COUNT-bound at ~5-8 ns/element
-regardless of table size (measured on v5e: 262k gathers from a 19k-row
-table and from a 308k-row table both ~2.2 ms), and the frame program
-issues ~5M of them (two per sample per tier), making gathers ~70% of the
-r2 frame latency (scan 53 ms + finisher 44 ms of a 114 ms frame were
-dominated by them).
-
-TPU-native replacement (SURVEY.md §2 L0 "Pallas kernels for the hot
-ops"; same design family as ops/knn_pallas.py's in-kernel one-hot MXU
-gather): an image lookup at integer pixel (vi, ui) is the bilinear form
+random image gather, ~5M of them per frame (two per sample per tier).
+This module expresses each lookup at integer pixel (vi, ui) as the
+bilinear form
 
     D[vi, ui] = onehot(vi) @ D @ onehot(ui)^T
 
-which is two matmuls the MXU executes at speed-of-light instead of a
-serial gather. For a batch of N samples over one [H, W] image:
+i.e. two matmuls instead of a gather. On the H100 the plain gathers are
+faster (the default `gather_mode="take"`; see PERF.md), so this path
+is an alternative kept for comparison. For a batch of N samples over one
+[H, W] image:
 
     E = V @ D            # [N,H] one-hot rows @ [H,W]  -> [N,W]
     d = sum(E * U, -1)   # row-wise dot with [N,W] one-hot
@@ -24,7 +19,7 @@ serial gather. For a batch of N samples over one [H, W] image:
 Lookups stay EXACT under bf16 matmuls because one operand is a one-hot
 (products are 1.0 * value) — provided the VALUE operand is exact in
 bf16, which f32 depths are not. The double-bf16 split (hi = bf16(x),
-lo = bf16(x - hi); CLAUDE.md f32-precision note) carries ~16 mantissa
+lo = bf16(x - hi)) carries ~16 mantissa
 bits through two bf16 matmuls with f32 accumulation: worst-case lookup
 error ~3 um at 0.5 m, far below every depth tolerance in the pipeline.
 
@@ -33,9 +28,8 @@ The bilinear (subpixel) variant returns all four corner values of the
 as the quad-gather path (score._bilinear_depth semantics), weights
 never enter a matmul.
 
-Measured v5e @ [P=512, N=512] samples over a [120,160] image: 2.2 ms
-(jnp.take) -> ~0.3 ms (this path). No Pallas needed: XLA fuses the
-iota-compare one-hot construction into the matmul pipeline well enough.
+No Pallas needed: XLA fuses the iota-compare one-hot construction into
+the matmul.
 """
 from __future__ import annotations
 
@@ -119,8 +113,8 @@ def take_patches(
     """
     S = p_hi.shape[-1]
     # operands cast to f32 but stay bf16-REPRESENTABLE (one-hots are
-    # exact 0/1, patches are bf16 halves), so TPU's DEFAULT-precision
-    # bf16 matmul passes lose nothing — and the f32 dtype keeps the
+    # exact 0/1, patches are bf16 halves), so a DEFAULT-precision (TF32
+    # on the GPU) matmul loses nothing — and the f32 dtype keeps the
     # batched dot on a kernel the CPU backend supports (its bf16 x bf16
     # = f32 DotThunk is unimplemented, which the virtual-device test
     # mesh would hit)

@@ -1,12 +1,12 @@
 """Point-to-plane ICP as a batched Gauss-Newton tensor program.
 
-TPU-native rebuild of the reference's per-hypothesis refinement
+Rebuild of the reference's per-hypothesis refinement
 (SURVEY.md §3 "Point-to-plane ICP": ~30 Gauss-Newton iterations of
 min_T sum_i ((s_i - T m_j(i)) . n_j(i))^2 with PCL KD-tree
 correspondences, serial C++ per particle). Redesign:
 
-  - correspondences: dense MXU distance matrix + argmin (ops/knn.py),
-    optionally the fused Pallas kernel (ops/knn_pallas.py);
+  - correspondences: a fused brute-force distance + argmin pass
+    (ops/knn.py);
   - the 6x6 normal equations are built with one einsum over points;
   - iterations are a lax.scan with a FIXED trip count — convergence is
     handled by freezing (converged hypotheses take zero-size steps), so
@@ -21,7 +21,7 @@ to the posed model cloud and left-multiplies the pose with exp(xi).
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -73,10 +73,9 @@ def correspondence_weights(
 def cholesky_solve6(H: jax.Array, g: jax.Array) -> jax.Array:
     """Solve H x = g for SPD H [...,6,6], g [...,6], fully unrolled.
 
-    jnp.linalg.solve on a [P,6,6] batch lowers to batched LU with
-    pivoting — scalar-ish and slow on TPU. Unrolling the 6x6 Cholesky
-    turns the whole batched solve into ~100 elementwise VPU ops over the
-    particle axis.
+    jnp.linalg.solve on a [P,6,6] batch lowers to a batched LU with
+    pivoting. Unrolling the 6x6 Cholesky turns the whole batched solve
+    into ~100 elementwise ops over the particle axis, which XLA fuses.
     """
     n = 6
     L = [[None] * n for _ in range(n)]
@@ -160,32 +159,16 @@ def icp_batched(
     step_scale: float = 1.0,
     converge_tol: float = 1e-6,
     gn_reps: int = 1,
-    nn_fn: Callable | None = None,
-    corr_fn: Callable | None = None,
-    gn_fn: Callable | None = None,
     support_tau: float = 0.0,
 ) -> tuple[jax.Array, IcpStats]:
     """Batched point-to-plane ICP, natively tensorized over the particle
     axis (BASELINE.json config-2 "batched 64-particle refine"): all P
     hypotheses share one scene; each iteration is ONE [P,Ns,Nm]
-    correspondence search + ONE batched GN solve — not P programs.
+    correspondence search + gn_reps batched GN solves — not P programs.
 
     Fixed iteration count (jit/vmap/scan safe); per-particle convergence
-    via freezing (SURVEY.md §8 hard part 5). Correspondence overrides:
-    - corr_fn(scene [Ns,3], posed_pts [P,Nm,3], posed_normals [P,Nm,3])
-      -> (matched [P,Ns,3], mnormal [P,Ns,3], d2 [P,Ns], idx [P,Ns]) —
-      the fused Pallas NN+gather kernel (knn_pallas.make_corr_fn);
-    - nn_fn(query [Ns,3], ref [P,Nm,3]) -> (idx, d2 [P,Ns]) — NN only,
-      matched points gathered with XLA;
-    - gn_fn(scene_c, scene_normals, scene_w, posed_c [P,Nm,3],
-      posed_normals) -> (H [P,6,6], g [P,6], wsum, hits, wrr) — the
-      FULLY FUSED kernel (knn_pallas.make_gn_fn): NN, gating, and the
-      normal-equation build all in-kernel; the matched streams never
-      reach HBM. gn_reps is ignored on this path (each iteration is one
-      search x one linearization — re-linearizing needs the matched
-      points the kernel deliberately does not emit); correspondence
-      gates and support_tau are baked into gn_fn at construction;
-    - default: dense jnp distance matrix.
+    via freezing (SURVEY.md §8 hard part 5). Correspondences come from
+    the fused brute-force search `knn.nn_gather_batched`.
 
     support_tau > 0 additionally reports IcpStats.support: the
     scene_weights-weighted fraction of scene points whose NN distance to
@@ -195,10 +178,6 @@ def icp_batched(
     """
     P = poses0.shape[0]
     min_cos = math.cos(math.radians(normal_angle_max_deg))
-    if nn_fn is not None:
-        search = nn_fn
-    else:
-        search = lambda q, r: jax.vmap(lambda rr: knn.nn(q, rr))(r)
     # Anchor the GN solve at the weighted scene centroid: rotations about
     # the camera origin are mostly translations for objects ~0.5m out,
     # which wrecks both the 6x6 conditioning and the linearization.
@@ -214,64 +193,12 @@ def icp_batched(
     scene_c = scene_pts - anchor                                  # [Ns,3]
     apply_twists = jax.vmap(se3.apply_twist_about, in_axes=(0, 0, None))
 
-    if gn_fn is not None:
-        if gn_reps != 1:
-            raise ValueError(
-                "gn_fn path runs exactly one linearization per search; "
-                f"gn_reps={gn_reps} is not supported (re-linearizing needs "
-                "the matched points the fused kernel does not emit)."
-            )
-        # make_gn_fn exposes its baked gate constants; if present, assert
-        # they agree with the arguments (which are otherwise ignored here).
-        baked = (getattr(gn_fn, "maxd2", None), getattr(gn_fn, "min_cos", None),
-                 getattr(gn_fn, "tau2", None))
-        if baked[0] is not None:
-            want = (max_corresp_dist**2, min_cos, support_tau**2)
-            for name, b, w in zip(("maxd2", "min_cos", "tau2"), baked, want):
-                if abs(b - w) > 1e-9 * max(1.0, abs(w)):
-                    raise ValueError(
-                        f"gn_fn was built with {name}={b} but icp_batched "
-                        f"was called with a value implying {name}={w}; "
-                        "construct make_gn_fn with matching gates."
-                    )
-
-        def body_fused(carry, _):
-            poses, frozen = carry
-            posed_c = se3.transform_points(poses, model_pts) - anchor
-            mnorm = se3.rotate_vectors(poses, model_normals)
-            H, g, wsum_w, hits, wrr = gn_fn(
-                scene_c, scene_normals, scene_weights, posed_c, mnorm
-            )
-            tr = jnp.trace(H, axis1=-2, axis2=-1)
-            lam = damping * (tr / 6.0 + 1e-12)
-            Hd = H + lam[..., None, None] * jnp.eye(6, dtype=H.dtype)
-            xi = cholesky_solve6(Hd, g) * step_scale
-            xi = jnp.where((wsum_w > 6.0)[..., None], xi, 0.0)
-            step = jnp.sum(xi * xi, axis=-1)
-            frozen = frozen | (step < converge_tol * converge_tol)
-            xi = jnp.where(frozen[:, None], 0.0, xi)
-            poses = apply_twists(xi, poses, anchor)
-            rmse = jnp.sqrt(wrr / jnp.maximum(wsum_w, 1e-9))
-            return (poses, frozen), (rmse, wsum_w, hits / wsum)
-
-        (poses, frozen), (rmses, inliers, supports) = jax.lax.scan(
-            body_fused, (poses0, jnp.zeros((P,), bool)), None, length=iters
-        )
-        return poses, IcpStats(
-            rmse=rmses[-1], inliers=inliers[-1], converged=frozen,
-            support=supports[-1],
-        )
-
     def body(carry, _):
         poses, frozen = carry                                     # [P,4,4],[P]
         posed = se3.transform_points(poses, model_pts)            # [P,Nm,3]
         mnorm_all = se3.rotate_vectors(poses, model_normals)      # [P,Nm,3]
-        if corr_fn is not None:
-            matched, mnorm, d2, idx = corr_fn(scene_pts, posed, mnorm_all)
-        else:
-            idx, d2 = search(scene_pts, posed)                    # [P,Ns]
-            matched = jnp.take_along_axis(posed, idx[..., None], axis=1)
-            mnorm = jnp.take_along_axis(mnorm_all, idx[..., None], axis=1)
+        matched, mnorm, d2, _ = knn.nn_gather_batched(
+            scene_pts, posed, mnorm_all)
         w = correspondence_weights(
             d2, scene_normals[None], mnorm, scene_weights[None],
             max_corresp_dist, min_cos,
@@ -308,11 +235,8 @@ def scene_support(
     scene_pts: jax.Array,      # [Ns,3]
     scene_weights: jax.Array,  # [Ns]
     model_pts: jax.Array,      # [Nm,3]
-    model_normals: jax.Array,  # [Nm,3] (only consumed by corr_fn)
     *,
     tau: float,
-    nn_fn: Callable | None = None,
-    corr_fn: Callable | None = None,
 ) -> jax.Array:
     """Observation-side support: weighted fraction of scene points within
     `tau` of the posed model cloud, per pose ([P]).
@@ -326,14 +250,7 @@ def scene_support(
     region and OUT-SCORED truth 1.455 vs 1.335; its support was 0.57 vs
     truth's 0.99 at tau=10 mm)."""
     posed = se3.transform_points(poses, model_pts)
-    if corr_fn is not None:
-        _, _, d2, _ = corr_fn(
-            scene_pts, posed, se3.rotate_vectors(poses, model_normals)
-        )
-    elif nn_fn is not None:
-        _, d2 = nn_fn(scene_pts, posed)
-    else:
-        _, d2 = jax.vmap(lambda rr: knn.nn(scene_pts, rr))(posed)
+    _, d2 = knn.nn_batched(scene_pts, posed)
     hit = (d2 < tau * tau).astype(d2.dtype)
     wsum = jnp.maximum(jnp.sum(scene_weights), 1e-9)
     return jnp.sum(hit * scene_weights[None], axis=-1) / wsum

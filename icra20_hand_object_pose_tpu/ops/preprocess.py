@@ -1,6 +1,6 @@
 """Fused depth-frame preprocessing.
 
-TPU-native rebuild of the reference's per-frame preprocessing chain
+Rebuild of the reference's per-frame preprocessing chain
 (SURVEY.md §4.2: Utils::depth2cloud + Utils::estimateNormals + validity
 filtering, originally PCL calls on the host). Here the whole chain is ONE
 XLA program over the [H,W] grid: backprojection, grid normals, validity
@@ -61,7 +61,7 @@ def speckle_mask(
 ) -> jax.Array:
     """Statistical outlier removal, grid-shaped (SURVEY.md §2 L2: the
     reference runs PCL outlier removal on the unorganized cloud; the
-    TPU-native equivalent exploits the image grid instead of a KD-tree).
+    rebuild exploits the image grid instead of a KD-tree).
 
     A valid pixel survives only if >= min_neighbors of its 8-neighborhood
     are valid AND within `tau` meters of it — isolated depth speckle
@@ -130,9 +130,8 @@ def subsample_cloud(
     stride-n_out scheme aliases when n_out % W == 0: each bucket
     degenerates to a single image column). One random-priority argmin
     per bucket picks a uniform valid pixel from that bucket. Replaces
-    lax.top_k over the 307k-entry VGA grid — top_k's sorting network
-    was ~5 ms of the 8 ms preprocess phase on v5e; reshape + argmin is
-    one reduction pass. Cost: a bucket with no valid pixel yields a
+    lax.top_k over the 307k-entry VGA grid (a sorting network); reshape
+    + argmin is one reduction pass. Cost: a bucket with no valid pixel yields a
     weight-0 slot even if other buckets are dense (only relevant for
     objects far smaller than one lattice cell); a fixed valid-sample
     count was never semantically required — weights carry validity.

@@ -1,6 +1,6 @@
 """Particle-swarm pose hypothesis optimization, as one lax.scan.
 
-TPU-native rebuild of the reference's PSO loop (SURVEY.md §3 "PSO /
+Rebuild of the reference's PSO loop (SURVEY.md §3 "PSO /
 particle optimizer": swarm of pose particles, SE(3) perturbation,
 render-and-compare scoring, personal/global best tracking, serial C++
 loop per particle per iteration). Redesign (SURVEY.md §4.5):
@@ -63,7 +63,7 @@ def score_particles(
     score_cfg: ScoreConfig,
     subpixel: bool = False,
     observed_enc: jax.Array | None = None,  # precomputed encode_observed
-    mxu_tables: tuple | None = None,        # pre-split MXU gather tables
+    mxu_tables: tuple | None = None,        # pre-split one-hot gather tables
     sample_mask: jax.Array | None = None,   # [Nr] frame-constant sample
                                             # visibility (self-occlusion)
 ) -> tuple[jax.Array, jax.Array]:
@@ -74,7 +74,7 @@ def score_particles(
     per-particle z-buffer; the whole swarm scores as two gathers + a
     fused elementwise pass (see score.compare_points for why).
     mode="pixel": batched splat render + per-pixel compare (the exact
-    z-buffered semantics, ~50x slower on TPU due to scatter)."""
+    z-buffered semantics; one scatter-min splat per particle)."""
     pts_cam = se3.transform_points(poses, render_pts)      # [P,Nr,3]
     if score_cfg.mode == "point":
         nrm_cam = se3.rotate_vectors(poses, render_normals)
@@ -204,12 +204,6 @@ def pso(
     pso_cfg: PsoConfig = PsoConfig(),
     icp_cfg: IcpConfig = IcpConfig(),
     score_cfg: ScoreConfig = ScoreConfig(),
-    nn_fn=None,
-    corr_fn=None,
-    gn_fn=None,     # fused NN+GN kernel for the IN-SCAN refine (and the
-                    # explorer pulls): knn_pallas.make_gn_fn. The final
-                    # polish always keeps the corr_fn path — its full-cloud
-                    # multi-rep GN is the accuracy-critical step
     axis_name: str | None = None,
     observed_neutral: jax.Array | None = None,  # [h,w] measured-but-
                        # excluded pixels (hand drop/speckle) — encoded as
@@ -243,8 +237,8 @@ def pso(
     iterations. All static shapes; safe under jit and shard_map: with
     `axis_name` set (parallel/sharding.py) this body runs per-shard on a
     slice of the swarm and the global best is agreed each iteration via
-    one tiny all_gather over ICI — the TPU-native replacement for the
-    reference's single-threaded best tracking (SURVEY.md §3 comm table:
+    one tiny all_gather — the replacement for the reference's
+    single-threaded best tracking (SURVEY.md §3 comm table:
     "psum/all_gather for global-best selection across sharded particles").
     Returned best_* values are then replicated across shards; the elite
     resample stays shard-local (each shard teleports its own worst
@@ -266,7 +260,7 @@ def pso(
         observed_depth, observed_valid, score_cfg.ghost_dilate,
         neutral=observed_neutral,
     )
-    # MXU gather tables (separable one-hot lookups, ops/gather_mxu):
+    # One-hot matmul gather tables (separable lookups, ops/gather_mxu):
     # split the encoded-observed and hand images into double-bf16 pairs
     # ONCE per tier, outside the scans. Hand +inf (no hand there) must
     # become a large finite sentinel before splitting: split_bf16(inf)
@@ -358,10 +352,7 @@ def pso(
             normal_angle_max_deg=icp_cfg.normal_angle_max_deg,
             damping=icp_cfg.damping,
             step_scale=icp_cfg.step_scale,
-            # the fused kernel runs exactly one linearization per search
-            # (icp_batched raises on gn_reps != 1 with gn_fn)
-            gn_reps=1 if gn_fn is not None else icp_cfg.gn_reps,
-            nn_fn=nn_fn, corr_fn=corr_fn, gn_fn=gn_fn,
+            gn_reps=icp_cfg.gn_reps,
             support_tau=cov_tau if use_cov else 0.0,
         )
         return refined, st.support
@@ -370,9 +361,8 @@ def pso(
         """Explicit support on the inner-ICP subsets (same tier as the
         refine byproduct), for poses that did not just run refine."""
         return icp_mod.scene_support(
-            poses, scene_pts[:ks], scene_weights[:ks],
-            model_pts[:km], model_normals[:km],
-            tau=cov_tau, nn_fn=nn_fn, corr_fn=corr_fn,
+            poses, scene_pts[:ks], scene_weights[:ks], model_pts[:km],
+            tau=cov_tau,
         )
 
     def swarm_best(poses, fitness, coverage):
@@ -499,18 +489,20 @@ def pso(
         # Axial-slide proposals (see PsoConfig.slide_proposals): probe the
         # competing translational basins along the model's principal axis
         # directly from the incumbent. The axis is a per-object constant
-        # but cheap enough to derive in-program (3x3 eigh).
+        # but cheap enough to derive in-program (3x3 eigh). Full-f32
+        # products: a TF32 scatter matrix tilts the axis by ~1e-3 rad.
+        prec = jax.lax.Precision.HIGHEST
         mc = jnp.mean(model_pts, axis=0)
         Xc = model_pts - mc
-        _, evecs = jnp.linalg.eigh(Xc.T @ Xc)
+        _, evecs = jnp.linalg.eigh(jnp.matmul(Xc.T, Xc, precision=prec))
         ax = evecs[:, -1]                                  # model frame
-        proj = Xc @ ax
+        proj = jnp.matmul(Xc, ax, precision=prec)
         extent = jnp.max(proj) - jnp.min(proj)
         half = n_slide // 2
         fr = (jnp.arange(1, half + 1, dtype=poses0.dtype) / half
               * pso_cfg.slide_max_frac)
         offs = jnp.concatenate([fr, -fr]) * extent         # [2*half]
-        d_cam = best_pose[:3, :3] @ ax                     # camera frame
+        d_cam = jnp.matmul(best_pose[:3, :3], ax, precision=prec)
         slid = jnp.tile(best_pose[None], (offs.shape[0], 1, 1))
         slid = slid.at[:, :3, 3].add(offs[:, None] * d_cam[None])
         cands = jnp.concatenate([cands, slid])
@@ -523,7 +515,6 @@ def pso(
         damping=icp_cfg.damping,
         step_scale=icp_cfg.step_scale,
         gn_reps=icp_cfg.gn_reps,
-        nn_fn=nn_fn, corr_fn=corr_fn,
         support_tau=cov_tau if use_cov else 0.0,
     )
     f_c, c_c = score_fn_hi(cands)
@@ -532,8 +523,7 @@ def pso(
         # fine-tier support on the FULL clouds (same arrays the polish
         # searched; the raw candidates need one explicit search)
         supp_c = icp_mod.scene_support(
-            cands, scene_pts, scene_weights, model_pts, model_normals,
-            tau=cov_tau, nn_fn=nn_fn, corr_fn=corr_fn,
+            cands, scene_pts, scene_weights, model_pts, tau=cov_tau,
         )
         f_c = f_c + cov_w * (supp_c - 1.0)
         f_p = f_p + cov_w * (pol_stats.support - 1.0)
@@ -589,14 +579,13 @@ def pso(
 
         score_fn_fin = score_fn_hi
         if use_mxu and observed_hi is not None:
-            # Per-point patch MXU tables (gather_mxu.take_patch_corners):
+            # Per-point patch tables (gather_mxu.take_patch_corners):
             # the finisher perturbs by millimeters around best_pose, so
             # each render sample's projection stays within a few px of
             # its reference projection for the whole finisher — extract
             # one [Nr,S,S] patch pair per table around the REFERENCE
             # projections and every in-scan lookup becomes a [*,S]@[S,S]
-            # one-hot matmul. This was the single hottest spot of the r2
-            # frame (fine-tier gathers: ~12 ms/finisher-iteration).
+            # one-hot matmul.
             S = pso_cfg.finish_patch
             ref = se3.transform_points(best_pose, render_pts)    # [Nr,3]
             zr = jnp.maximum(ref[..., 2], 1e-6)
@@ -626,10 +615,10 @@ def pso(
         # Sigma LADDER: each iteration's batch spans finish_sigma_rungs
         # anneal scales simultaneously (particle i at sigma_decay^(i%R)),
         # instead of one scale per iteration. The frame program is
-        # latency-bound, not FLOP-bound (bench roofline: MFU ~0.04%), so
-        # the same number of fine-tier score evaluations costs ~3x less
-        # wall time as 4 large sequential ops than as 12 small ones —
-        # and the finest rung is present from iteration 1. Per-iteration
+        # latency-bound, not FLOP-bound, so the same number of fine-tier
+        # score evaluations costs less wall time as 4 large sequential
+        # ops than as 12 small ones — and the finest rung is present
+        # from iteration 1. Per-iteration
         # sig decays by sigma_decay^finish_sigma_rungs so the schedule
         # still reaches the same finest scale overall.
         R = max(1, pso_cfg.finish_sigma_rungs)
@@ -714,7 +703,9 @@ def diverse_hypotheses(
 
 def _near_pose(poses, pose, rot_min_deg, trans_min):
     """[C] bool: within BOTH rotation and translation radii of `pose`."""
-    cos = (jnp.einsum("cij,ij->c", poses[:, :3, :3], pose[:3, :3]) - 1.0) / 2.0
+    # full f32: near cos = 1 a TF32 trace loses whole degrees
+    cos = (jnp.einsum("cij,ij->c", poses[:, :3, :3], pose[:3, :3],
+                      precision=jax.lax.Precision.HIGHEST) - 1.0) / 2.0
     rot_deg = jnp.degrees(jnp.arccos(jnp.clip(cos, -1.0, 1.0)))
     tr = jnp.linalg.norm(poses[:, :3, 3] - pose[:3, 3], axis=-1)
     return (rot_deg < rot_min_deg) & (tr < trans_min)

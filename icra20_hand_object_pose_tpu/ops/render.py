@@ -1,6 +1,6 @@
-"""Depth rendering on TPU.
+"""Depth rendering.
 
-TPU-native replacement for the reference's offscreen OpenGL FBO renderer
+Replacement for the reference's offscreen OpenGL FBO renderer
 (SURVEY.md §3 "Offscreen depth renderer": rasterize object+hand mesh at a
 hypothesis pose into a synthetic depth buffer, one GL call per particle
 per PSO iteration). Two engines, both pure XLA:
@@ -45,8 +45,8 @@ def splat_depth(
     as ONE radius-0 scatter into an r-padded grid followed by a (2r+1)^2
     min-pool (grayscale erosion) — bitwise-identical to scattering every
     footprint pixel (min commutes), but with 1 scatter instead of
-    (2r+1)^2: scatter is the slowest XLA op on TPU (measured r1), pooling
-    lowers to cheap reduce_window. Batches cleanly under vmap.
+    (2r+1)^2: one scatter pass, and pooling lowers to a cheap
+    reduce_window. Batches cleanly under vmap.
     """
     z = points_cam[:, 2]
     valid = (z > 1e-6) & (weights > 0)
@@ -105,7 +105,7 @@ def raster_depth(
     lax.scan over CHUNKS of faces; each step half-plane-tests a [C,H,W]
     block and folds it into the min z-buffer. Cost is O(F*H*W) —
     generator-grade, not inner-loop grade — but chunking keeps the scan
-    short (dispatch-bound per-face scans took minutes at VGA on TPU).
+    short (a per-face scan is dispatch-bound at VGA).
     """
     z = vertices_cam[:, 2]
     safe_z = jnp.maximum(z, 1e-6)

@@ -1,6 +1,6 @@
 """Render-and-compare hypothesis scoring with finger-occlusion masking.
 
-TPU-native rebuild of the reference's per-particle scoring (SURVEY.md §3
+Rebuild of the reference's per-particle scoring (SURVEY.md §3
 "Render-and-compare scorer": rendered vs observed depth residual,
 wrong-side penalties, finger-occlusion masking so points hidden behind
 fingers are not penalized). Here the whole thing is an elementwise
@@ -57,7 +57,7 @@ _NEUTRAL = -2.0  # measured in range but excluded from evidence by
                 # exempt from the coverage denominator when
                 # neutral_cov_exempt is set (init-mode scoring — see
                 # compare_points). All sentinels exactly bf16-representable:
-                # the MXU gather tables split them hi/lo without rounding.
+                # the one-hot gather tables split them hi/lo without rounding.
 
 
 def encode_observed(
@@ -223,7 +223,7 @@ def _edge_aware_combine(
     edge_tau: float,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Edge-aware bilinear combination of the four 2x2 corner values
-    (encoded-image semantics; shared by the quad-gather and MXU-gather
+    (encoded-image semantics; shared by the quad-gather and one-hot-gather
     corner fetchers — identical math, so the two paths agree to the
     corner values' precision)."""
     d_corner, w_corner, m_corner = [], [], []
@@ -286,9 +286,7 @@ def compare_points(
     per-particle z-buffer.
 
     The pixel path (`compare_depth`) needs a scatter-min splat per
-    particle per PSO iteration — measured 147 ms per iteration at
-    [512,2048]->[120,160] on v5e (XLA TPU scatter is the slowest op in
-    the whole frame program). This path renders NOTHING: each posed model
+    particle per PSO iteration. This path renders NOTHING: each posed model
     sample gathers the observed depth at its projected pixel and is
     classified exactly like a rendered pixel would be. Self-occlusion
     (the z-buffer's job) is approximated by back-face culling: samples
@@ -310,9 +308,8 @@ def compare_points(
     single gather.
 
     mxu_tables replaces every image gather (observed depth AND hand
-    occlusion) with separable one-hot MXU matmuls (ops/gather_mxu) —
-    the dominant frame cost was XLA's count-bound gather (~5-8
-    ns/lookup; two lookups per sample per iteration). Two forms:
+    occlusion) with separable one-hot matmuls (ops/gather_mxu). Two
+    forms:
 
       ("image", enc_hi, enc_lo, hand_hi, hand_lo) — full-image lookups
       (coarse/low-res tier). enc_* = gather_mxu.split_bf16 of

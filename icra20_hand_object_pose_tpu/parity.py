@@ -125,7 +125,7 @@ def compare_pose_sequences(
 
     `identical` uses rotation/translation tolerances (defaults: 0.1 deg /
     0.1 mm — far below any physical accuracy claim, loose enough to
-    absorb f32-vs-f64 and TPU-vs-CPU arithmetic differences). ADD/ADD-S
+    absorb f32-vs-f64 and GPU-vs-CPU arithmetic differences). ADD/ADD-S
     deltas are included when `model_pts` is given, since symmetric
     objects can differ by a symmetry transform while being equally
     correct — ADD-S is the fair cross-implementation metric.

@@ -51,25 +51,11 @@ class IcpConfig:
     """Point-to-plane ICP (SURVEY.md §3; BASELINE.json config 1)."""
     iters: int = 12                     # final-polish GN iterations; the
                                         # polish starts near-converged (PSO
-                                        # best), 12 suffices and the fixed
-                                        # 30 cost ~40ms/frame at P=1
+                                        # best), 12 suffices
     max_corresp_dist: float = 0.02      # meters; gate for correspondences
     normal_angle_max_deg: float = 60.0  # reject normal-incompatible pairs
     damping: float = 1e-6               # Levenberg damping on the 6x6 solve
     step_scale: float = 1.0
-    fused_gn: bool = False              # in-scan refine via the fully
-                                        # fused NN+GN Pallas kernel
-                                        # (knn_pallas.nn_gn_batched): the
-                                        # normal equations are built
-                                        # in-kernel and the matched-point
-                                        # streams never reach HBM. Each
-                                        # inner iteration is then ONE
-                                        # search x ONE linearization
-                                        # (gn_reps does not apply — the
-                                        # kernel deliberately does not
-                                        # emit the matched points a
-                                        # re-linearization would need).
-                                        # TPU only; A/B before enabling.
     gn_reps: int = 3                    # GN re-linearizations per NN
                                         # search (correspondence reuse —
                                         # each rep re-poses the matched
@@ -83,8 +69,8 @@ class IcpConfig:
                                         # model subset 256 beat 2x2/512
                                         # on MEDIAN tracked ADD (1.1-1.2
                                         # vs 1.65-1.75 mm) with
-                                        # comparable tails, at 34 vs
-                                        # 46 ms/frame
+                                        # comparable tails and half the
+                                        # in-scan searches
 
 
 @dataclass(frozen=True)
@@ -97,9 +83,8 @@ class PsoConfig:
     sigma_decay: float = 0.7            # anneal per PSO iteration
     icp_every: int = 1                  # run ICP refine every k PSO iters.
                                         # every=2 was A/B'd r3 (asym+mug
-                                        # noisy, 18 runs each): saves
-                                        # ~10 ms/frame (in-scan ICP is
-                                        # ~19 ms of 42) but costs +15%
+                                        # noisy, 18 runs each): halves
+                                        # the in-scan ICP but costs +15%
                                         # tracked ADD-S on the mug
                                         # (2.13 -> 2.44 mm) — rejected;
                                         # the noisy-VGA ≤1 mm bar has no
@@ -114,11 +99,11 @@ class PsoConfig:
                                         # repeats the pull every
                                         # iteration anyway)
     icp_scene_subset: int = 512         # stochastic inner ICP: scene points
-                                        # (768 A/B'd r3: slower AND worse)
+                                        # (768 A/B'd r3: worse ADD-S)
     icp_model_subset: int = 256         # stochastic inner ICP: model points
-                                        # (512 -> 256 A/B r3: -4 ms with
-                                        # the better median; the polish
-                                        # still uses the full clouds)
+                                        # (512 -> 256 A/B r3: the better
+                                        # median; the polish still uses
+                                        # the full clouds)
     elite_frac: float = 0.25            # resample worst particles around best
     resample_after: int = 0             # first PSO iteration at which the
                                         # elite resample may fire; init
@@ -145,12 +130,11 @@ class PsoConfig:
                                         # basin-search tier (full set is
                                         # used at the fine tier)
     finish_iters: int = 4               # score-only annealed finisher stage
-                                        # (3 -> 4 A/B r3: free in wall
-                                        # time at the new ICP cadence,
-                                        # trims the noisy-tail p90)
+                                        # (3 -> 4 A/B r3: trims the
+                                        # noisy-tail p90)
     finish_particles: int = 512         # finisher batch size (per shard)
     finish_sigma_frac: float = 0.15     # finisher start sigma (x rot/trans)
-    finish_patch: int = 16              # px; per-point MXU gather patch
+    finish_patch: int = 16              # px; per-point one-hot gather patch
                                         # side for the finisher tier
                                         # (ops/gather_mxu.take_patch_*):
                                         # must cover the max projection
@@ -165,8 +149,7 @@ class PsoConfig:
                                         # the old 12-iteration finisher
                                         # walked, in 3 large ops instead
                                         # of 12 small ones (the frame is
-                                        # latency-bound: r2 finisher was
-                                        # 37 ms of a 107 ms frame)
+                                        # latency-bound)
     slide_proposals: int = 8            # axial-slide candidates injected
                                         # into the fine-tier polish: copies
                                         # of the incumbent best translated
@@ -274,12 +257,15 @@ class ScoreConfig:
     ghost_dilate: int = 1               # px of silhouette tolerance before
                                         # a no-return projection is
                                         # penalized as a ghost
-    gather_mode: str = "mxu"            # "mxu": projective depth lookups
-                                        # as separable one-hot MXU
-                                        # matmuls (ops/gather_mxu; XLA's
-                                        # count-bound TPU gather was ~70%
-                                        # of r2 frame latency); "take":
-                                        # plain XLA gathers (oracle path)
+    gather_mode: str = "take"           # "take": plain XLA gathers for
+                                        # the projective depth lookups;
+                                        # "mxu": separable one-hot
+                                        # matmuls over double-bf16 tables
+                                        # (ops/gather_mxu). Measured on
+                                        # an H100 at a 400 W limit: the
+                                        # full-width track frame takes
+                                        # 9.0 ms with take vs 24.5 ms
+                                        # with mxu
     neutral_cov_exempt: bool = False    # exclude samples on segmentation-
                                         # dropped (_NEUTRAL) pixels from
                                         # the coverage denominator. The
@@ -382,9 +368,8 @@ class HandConfig:
                                         # upsampling the lo-res occluder
                                         # splat (False): the VGA hand
                                         # scatter is the last big scatter
-                                        # in the hot path (~4.3 ms of the
-                                        # 34 ms frame incl. FK/config
-                                        # scoring); the upsampled mask
+                                        # in the hot path; the upsampled
+                                        # mask
                                         # quantizes the drop band to the
                                         # lo grid (~4 px) — the exact
                                         # point-level distance removal

@@ -1,6 +1,6 @@
 """SE(3) / SO(3) math core.
 
-TPU-native rebuild of the reference's Eigen-based pose utilities
+Rebuild of the reference's Eigen-based pose utilities
 (reference: src/Utils.* — quaternion/rotation conversions, pose
 composition, random pose perturbation sampling; see SURVEY.md §3
 "SE(3) utilities"). Everything here is pure jnp, shape-polymorphic
@@ -21,8 +21,8 @@ import jax.numpy as jnp
 
 _EPS = 1e-9
 
-# TPU matmuls default to bfloat16 passes; pose math is tiny but
-# correctness-critical, so every contraction here pins full f32 precision.
+# DEFAULT-precision f32 matmuls may run in TF32 on the GPU; pose math is
+# tiny but correctness-critical, so every contraction here pins full f32.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -191,11 +191,11 @@ def inverse(T: jax.Array) -> jax.Array:
 
 
 def _rotate_fma(R: jax.Array, pts: jax.Array) -> jax.Array:
-    """[...,3,3] x [...,N,3] as 9 broadcast FMAs on the VPU.
+    """[...,3,3] x [...,N,3] as 9 broadcast FMAs.
 
-    An einsum with Precision.HIGHEST over a K=3 contraction lowers to a
-    multi-pass MXU program that measured 22 ms at [512,2048,3] on v5e;
-    the unrolled form is exact f32 and runs in the noise.
+    An einsum with Precision.HIGHEST over a K=3 contraction becomes a
+    batched matmul of depth 3; the unrolled form is exact f32 and fuses
+    into its consumers.
     """
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     Rb = R[..., None, :, :]  # broadcast over the point axis

@@ -28,7 +28,6 @@ def run(shape: str, noise: bool, subpixel: bool, frames: int,
         tau_fine: float | None = None, seed: int = 3,
         realistic: bool = False,
         joint_sigma: float | None = None,
-        fused_gn: bool = False,
         finisher: str | None = None,
         base_refine: int = -1,
         self_occ: bool = True) -> dict:
@@ -67,10 +66,6 @@ def run(shape: str, noise: bool, subpixel: bool, frames: int,
             # (3 rounds default; --base-refine 0 disables for A/B)
             hkw["base_refine_iters"] = base_refine if base_refine > 0 else 3
         hand_kw["hand"] = HandConfig(**hkw)
-    icp_kw = {}
-    if fused_gn:
-        from icra20_hand_object_pose_tpu.utils.config import IcpConfig
-        icp_kw["icp"] = IcpConfig(fused_gn=True)
     pso_kw = dict(particles=particles, iters=10)
     if finisher:
         fi, fp, fr = (int(x) for x in finisher.split(","))
@@ -81,7 +76,7 @@ def run(shape: str, noise: bool, subpixel: bool, frames: int,
         pso=PsoConfig(**pso_kw),
         score=ScoreConfig(**score_kw),
         tracker=TrackerConfig(**tracker_kw),
-        **hand_kw, **icp_kw,
+        **hand_kw,
     )
     mesh = meshio.make_test_object(shape)
     hand = make_t42_hand()
@@ -185,8 +180,6 @@ def main():
                          "(VERDICT r3 item 3)")
     ap.add_argument("--joint-sigma", type=float, default=None,
                     help="override HandConfig.joint_sigma (A/B)")
-    ap.add_argument("--fused-gn", action="store_true",
-                    help="in-scan refine via the fused NN+GN kernel (A/B)")
     ap.add_argument("--finisher", default=None,
                     help="override finisher shape as iters,particles,rungs")
     ap.add_argument("--base-refine", type=int, default=-1,
@@ -199,7 +192,7 @@ def main():
     for n in noises:
         run(a.shape, n, not a.no_subpixel, a.frames, a.particles, a.init_gt,
             a.hyp, a.motion_prior, a.tau_fine, a.seed, a.realistic,
-            a.joint_sigma, a.fused_gn, a.finisher, a.base_refine,
+            a.joint_sigma, a.finisher, a.base_refine,
             not a.no_self_occ)
 
 

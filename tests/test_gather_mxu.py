@@ -1,4 +1,4 @@
-"""MXU separable one-hot image gather (ops/gather_mxu) vs jnp.take oracle.
+"""Separable one-hot matmul image gather (ops/gather_mxu) vs jnp.take oracle.
 
 The gather replacement must be exact to double-bf16 precision (~3 um at
 0.5 m) or the coarse-tier fitness field changes and the swarm behaves
@@ -47,7 +47,7 @@ def test_take_image_out_of_range_is_zero():
 
 def test_take_image_corners_matches_quad():
     """Corner fetch must agree with the pack_quad gather path, including
-    the border (-1 / H-1) rows the _FAR padding used to cover — the MXU
+    the border (-1 / H-1) rows the _FAR padding used to cover — the one-hot
     path returns 0.0 there, which the masks treat identically (invalid);
     compare only the in-range corners for value equality."""
     H, W = 40, 48

@@ -150,12 +150,12 @@ def test_scene_support_separates_truth_from_slide():
     slid = np.asarray(T_gt).copy()
     slid[:3, 3] += slid[:3, :3] @ np.asarray([0.0, 0.0, 0.05], np.float32)
     poses = jnp.stack([jnp.asarray(T_gt), jnp.asarray(slid)])
-    supp = icp.scene_support(poses, sp, w, mp, mn, tau=0.01)
+    supp = icp.scene_support(poses, sp, w, mp, tau=0.01)
     assert float(supp[0]) > 0.95
     assert float(supp[1]) < 0.8
     # weighted: zeroed points must not count
     w2 = w.at[: sp.shape[0] // 2].set(0.0)
-    supp_w = icp.scene_support(poses, sp, w2, mp, mn, tau=0.01)
+    supp_w = icp.scene_support(poses, sp, w2, mp, tau=0.01)
     assert float(supp_w[0]) > 0.95
 
 
@@ -171,7 +171,7 @@ def test_icp_batched_support_matches_scene_support():
         T0s, sp, sn, w, mp, mn, iters=15, max_corresp_dist=0.05,
         support_tau=0.01,
     )
-    explicit = icp.scene_support(Tb, sp, w, mp, mn, tau=0.01)
+    explicit = icp.scene_support(Tb, sp, w, mp, tau=0.01)
     np.testing.assert_allclose(
         np.asarray(stats.support), np.asarray(explicit), atol=0.02
     )

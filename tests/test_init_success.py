@@ -1,6 +1,6 @@
 """Global-registration success regression gate (VERDICT r2 item 1).
 
-The TPU bench (`bench.py --init`) sweeps all six shapes at VGA with 30
+The VGA bench (`bench.py --init`) sweeps all six shapes at VGA with 30
 trials each (r3 measured: worst shape 93.3%, counting one-frame
 recovery). This reduced CPU-mesh version pins the capability so a
 regression in the init pipeline (orientation prescreen, explorer seeds,

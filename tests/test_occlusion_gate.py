@@ -2,7 +2,7 @@
 the whole curve + the composed realistic regime in r5 per VERDICT r4
 item 4).
 
-The TPU-measured headline curve (scripts/eval_occlusion.py, VGA, 512p,
+The measured headline curve (scripts/eval_occlusion.py, VGA, 512p,
 2 seeds x 8 frames, exact-raster observed data, 2026-08-19 r5) tracks
 flat in occlusion; these gates pin LOW / MID / HEAVY levels plus ONE
 realistic-sensor + miscalibrated-hand combo at reduced res (320x240,

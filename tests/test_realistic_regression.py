@@ -6,7 +6,7 @@ angles. This file pins behavior under the REALISTIC model —
 datasets.SensorModel (1 mm quantization = the 16-bit PNG LSB, depth^2
 noise growth, lateral edge jitter) plus hand CALIBRATION error (base
 pose 5 mm / 3 deg off, nominal q 0.15 rad from the true closure) — at
-reduced res on the CPU mesh. TPU-measured headline (30 trials/shape at
+reduced res on the CPU mesh. Measured headline (30 trials/shape at
 VGA, bench --init-realistic): worst shape 93.3% init success, all
 shapes 93-100%.
 
@@ -116,7 +116,7 @@ def test_realistic_init(shape):
         if e < 0.1 * obj.diameter:
             n_ok += 1
             continue
-        # one tracked recovery frame (same credit as the TPU bench)
+        # one tracked recovery frame (same credit as the VGA bench)
         p1 = np.asarray(se3.perturb_pose(
             jax.random.fold_in(keys[t], 2), jnp.asarray(gt),
             0.035, 0.002)).astype(np.float32)

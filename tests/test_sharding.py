@@ -91,6 +91,16 @@ def test_library_sweep_sharded(tiny):
     # second frame: tracked objects with healthy fitness must not re-init
     healthy = np.asarray(res.fitness) >= cfg.tracker.fitness_reinit_threshold
     assert not np.any(np.asarray(res2.reinitialized)[healthy])
+    # the state keeps one layout from step to step (jit compiles once per
+    # input sharding): object-axis fields sharded, the rest replicated
+    obj_sh = jax.sharding.NamedSharding(sweep.mesh,
+                                        jax.sharding.PartitionSpec("obj"))
+    for name in ("poses", "fitness", "initialized", "coverage",
+                 "prev_poses", "vel_ok", "pose_tracked"):
+        a = getattr(st2, name)
+        assert a.sharding.is_equivalent_to(obj_sh, a.ndim), name
+    assert st2.key.sharding.is_fully_replicated
+    assert st2.frame_idx.sharding.is_fully_replicated
     # checkpoint round-trip
     sweep.save_state(st2, "/tmp/sweep_state.npz")
     st3 = sweep.load_state("/tmp/sweep_state.npz")
